@@ -23,8 +23,8 @@ def main():
 
     jax.config.update("jax_platforms", "cpu")
 
-    from spydrpick_tpu.core.alignment import Alignment
-    from spydrpick_tpu.engine.solver import EngineConfig, MIEngine
+    from spydrpick_jax.core.alignment import Alignment
+    from spydrpick_jax.engine.solver import EngineConfig, MIEngine
 
     S = int(sys.argv[1]) if len(sys.argv) > 1 else 3000
     L = int(sys.argv[2]) if len(sys.argv) > 2 else 2048
@@ -40,8 +40,7 @@ def main():
         n_original_positions=L,
         weights=rng.random(S) * 0.9 + 0.1,
     )
-    engine = MIEngine(al, EngineConfig(tile=512, use_pallas="off",
-                                       use_pallas_compact="off"))
+    engine = MIEngine(al, EngineConfig(tile=512, compaction="scatter"))
     # threshold retaining ~100*L edges, like bench.py
     ii = rng.integers(0, L, 20000)
     jj = rng.integers(0, L, 20000)

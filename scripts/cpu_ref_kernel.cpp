@@ -11,7 +11,7 @@
 // an unweighted u32 path (upper bound for --no-sample-reweighting).
 // Uniform-random data is worst-case for the reference's run-length
 // block compression, making the resulting denominator GENEROUS to the
-// TPU side's ratio on redundant real alignments — documented in
+// accelerator's ratio on redundant real alignments — documented in
 // BASELINE.md.
 //
 // Build/run: g++ -O3 -march=native -fopenmp cpu_ref_kernel.cpp && ./a.out [S] [L] [npairs]

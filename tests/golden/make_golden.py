@@ -28,8 +28,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 def build_alignment_fasta(path: str) -> None:
     """60 samples x 200 loci: planted couplings, gaps, low-MAF columns,
     duplicate samples (exercises sample reweighting)."""
-    from spydrpick_tpu.core.alignment import Alignment
-    from spydrpick_tpu.io.fasta import write_fasta
+    from spydrpick_jax.core.alignment import Alignment
+    from spydrpick_jax.io.fasta import write_fasta
 
     rng = np.random.default_rng(1234)
     S, L = 60, 200
@@ -67,8 +67,8 @@ def build_alignment2(path: str, mappings: str, weights: str) -> None:
     """Fixture 2: sparse genome mappings (circular distance over a
     600-position genome), user-supplied sample weights, explicit MI
     threshold — the flag paths fixture 1 does not reach."""
-    from spydrpick_tpu.core.alignment import Alignment
-    from spydrpick_tpu.io.fasta import write_fasta
+    from spydrpick_jax.core.alignment import Alignment
+    from spydrpick_jax.io.fasta import write_fasta
 
     rng = np.random.default_rng(4321)
     S, L = 50, 160
@@ -107,7 +107,7 @@ GOLDEN2_ARGS = [
 
 
 def main() -> None:
-    from spydrpick_tpu.cli import main as cli_main
+    from spydrpick_jax.cli import main as cli_main
 
     fasta = os.path.join(HERE, "golden.fasta")
     build_alignment_fasta(fasta)

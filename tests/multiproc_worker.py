@@ -33,9 +33,9 @@ def main() -> int:
 
     import numpy as np
 
-    from spydrpick_tpu.core.alignment import Alignment
-    from spydrpick_tpu.engine.solver import EngineConfig, MIEngine
-    from spydrpick_tpu.parallel.mesh import make_mesh, sharded_sweep
+    from spydrpick_jax.core.alignment import Alignment
+    from spydrpick_jax.engine.solver import EngineConfig, MIEngine
+    from spydrpick_jax.parallel.mesh import make_mesh, sharded_sweep
 
     rng = np.random.default_rng(7)
     S, L = 24, 96

@@ -3,8 +3,8 @@
 Every expected value in this file is computed BY HAND from the
 reference semantics (include/mi.hpp:146-181, ARACNE.hpp:311-321,480-487)
 as literal arithmetic — independently of ops/reference.py — so the
-oracle itself, the XLA path, and the Pallas path are all pinned to the
-same externally-derived numbers.
+oracle itself, the f32 crosstable path, and the exact int8 path are all
+pinned to the same externally-derived numbers.
 
 Derivations are written out per fixture.  Notation: pc = pseudocount,
 A = counts + pc on presence-masked cells, Z = masked sum of A,
@@ -19,8 +19,8 @@ import math
 import numpy as np
 import pytest
 
-from spydrpick_tpu.core.alignment import Alignment
-from spydrpick_tpu.engine.solver import EngineConfig, MIEngine
+from spydrpick_jax.core.alignment import Alignment
+from spydrpick_jax.engine.solver import EngineConfig, MIEngine
 
 xlx = lambda p: p * math.log(p)
 
@@ -106,8 +106,8 @@ C_MI = 2 * xlx(2.5 / 6) + 2 * xlx(0.5 / 6) - 4 * xlx(0.5)
 def test_hand_derived_mi_all_paths(cols, weights, exp_mi, exp_wog):
     """Oracle, XLA batch kernel, and the engine sweep must all hit the
     hand-derived numbers."""
-    from spydrpick_tpu.ops.mi import mi_from_crosstabs
-    from spydrpick_tpu.ops.reference import crosstab_pair, mi_single
+    from spydrpick_jax.ops.mi import mi_from_crosstabs
+    from spydrpick_jax.ops.reference import crosstab_pair, mi_single
 
     al = _align(cols, None if weights is None else np.asarray(weights))
     w = np.ones(4) if weights is None else np.asarray(weights, np.float64)
@@ -135,22 +135,20 @@ def test_hand_derived_mi_all_paths(cols, weights, exp_mi, exp_wog):
     assert wg == pytest.approx(exp_wog, abs=2e-6)
 
 
-def test_hand_derived_mi_pallas_kernel():
-    """The fused Pallas kernel (interpret mode off-TPU) hits the same
-    hand-derived quirk numbers (fixture A embedded in a 128-wide tile)."""
-    from spydrpick_tpu.ops.mi_pallas import BI
-
-    cols = [A_COL_I, A_COL_J] + [[0, 1, 0, 1]] * (2 * BI - 2)
+def test_hand_derived_mi_int8_unit():
+    """The exact int8 unit-weight crosstable (auto-selected for unit
+    weights) hits the same hand-derived quirk numbers (fixture A
+    embedded in a 256-column alignment, dual variant on)."""
+    cols = [A_COL_I, A_COL_J] + [[0, 1, 0, 1]] * 254
     al = _align(cols)
-    eng = MIEngine(al, EngineConfig(tile=BI, use_pallas="on",
-                                    wog_fetch="full"))
-    assert eng.statics.use_pallas
+    eng = MIEngine(al, EngineConfig(tile=128, wog_fetch="full"))
+    assert eng.statics.int8_mode == "unit"
     edges = eng.sweep(-10.0)
     k = {(i, j): (m, wg) for i, j, m, wg in
          zip(edges.ipos, edges.jpos, edges.mi, edges.mi_wog)}
     m, wg = k[(0, 1)]
-    assert m == pytest.approx(A_MI, abs=5e-5)
-    assert wg == pytest.approx(A_MI_WOG, abs=5e-5)
+    assert m == pytest.approx(A_MI, abs=2e-6)
+    assert wg == pytest.approx(A_MI_WOG, abs=2e-6)
 
 
 # --------------------------------------------------------------------- #
@@ -180,7 +178,7 @@ D_MI_WOG = (xlx(0.3) + xlx(0.3) + xlx(0.3) + xlx(0.1)) \
 def test_gap_row_mass_two_present_jstates():
     """Fixture D: quirk value with gap mass under two present j-states,
     oracle + engine (wo-gaps variant)."""
-    from spydrpick_tpu.ops.reference import crosstab_pair, mi_single
+    from spydrpick_jax.ops.reference import crosstab_pair, mi_single
 
     al = _align([D_COL_I, D_COL_J])
     w = np.ones(5)
@@ -202,7 +200,7 @@ def test_gap_row_mass_two_present_jstates():
 # --------------------------------------------------------------------- #
 
 def test_filter_boundaries_inclusive():
-    from spydrpick_tpu.core.filter import FilterParams, filter_mask
+    from spydrpick_jax.core.filter import FilterParams, filter_mask
 
     n = 200
     def col(second_count, gap_count):
@@ -307,7 +305,7 @@ def _mi_pair_independent(ci, cj, w, pc=0.5):
 
 
 def test_weighted_tournament_matches_independent_estimator():
-    from spydrpick_tpu.engine.threshold import (
+    from spydrpick_jax.engine.threshold import (
         determine_mi_threshold,
         determine_threshold_pairs,
         sample_pairs,
@@ -355,7 +353,7 @@ def test_aracne_equal_triangle_threshold_zero(use_native):
     three marked indirect (flags 0).  At any positive threshold the
     margin fails — all direct.  This is the exact case the reference's
     equal-MI block-boundary rewind exists to get right."""
-    from spydrpick_tpu.engine.aracne import run_aracne
+    from spydrpick_jax.engine.aracne import run_aracne
 
     i = np.array([0, 0, 1])
     j = np.array([1, 2, 2])
@@ -373,7 +371,7 @@ def test_aracne_tie_run_order_independent(use_native):
     ties, ARACNE.hpp:480-487; the closed form is order-free by
     construction).  Mixed graph: a tied triangle chained to a strictly
     weaker edge."""
-    from spydrpick_tpu.engine.aracne import run_aracne
+    from spydrpick_jax.engine.aracne import run_aracne
 
     # triangle (0,1,2) all at 0.5; edge (2,3) at 0.5 (same run, no
     # triangle); edge (0,3) at 0.2 -> triangle (0,2,3) has min 0.2
@@ -402,7 +400,7 @@ def test_aracne_tie_straddling_reference_block_boundary(use_native):
     (ARACNE.hpp:480-487).  Build a graph whose tied run would straddle
     that boundary and check the closed form treats every tied triangle
     alike regardless of position in the sorted stream."""
-    from spydrpick_tpu.engine.aracne import run_aracne
+    from spydrpick_jax.engine.aracne import run_aracne
 
     rng = np.random.default_rng(5)
     # filler: a long descending run of isolated (triangle-free) edges
@@ -442,7 +440,7 @@ def test_empty_colmax_quartiles_use_boost_lowest_not_inf():
     IQR = 0 and outlier threshold = lowest() — the reference flags
     EVERY stored edge as an outlier.  -inf quartiles would give
     IQR = NaN and flag none."""
-    from spydrpick_tpu.engine.outliers import outlier_thresholds, quartile
+    from spydrpick_jax.engine.outliers import outlier_thresholds, quartile
 
     low = np.finfo(np.float64).min
 

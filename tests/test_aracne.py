@@ -8,7 +8,7 @@ import itertools
 import numpy as np
 import pytest
 
-from spydrpick_tpu.engine.aracne import aracne_mark_indirect, run_aracne
+from spydrpick_jax.engine.aracne import aracne_mark_indirect, run_aracne
 
 
 def oracle_mark(ipos, jpos, mi, threshold):

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from spydrpick_tpu.engine.aracne import aracne_mark_indirect
+from spydrpick_jax.engine.aracne import aracne_mark_indirect
 
 try:
-    from spydrpick_tpu.native import aracne_native
+    from spydrpick_jax.native import aracne_native
 
     aracne_native._load()
     HAVE_NATIVE = True

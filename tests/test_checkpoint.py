@@ -5,8 +5,8 @@ import os
 
 import numpy as np
 
-from spydrpick_tpu.engine import checkpoint as ck
-from spydrpick_tpu.engine.solver import EngineConfig, MIEngine
+from spydrpick_jax.engine import checkpoint as ck
+from spydrpick_jax.engine.solver import EngineConfig, MIEngine
 
 from tests.conftest import random_alignment
 
@@ -143,8 +143,8 @@ def test_cli_checkpoint_resume_outputs_match(tmp_path):
     run must be picked up by the FULL CLI (same flags -> same params
     key) and produce byte-identical couplings to an uncheckpointed CLI
     run."""
-    from spydrpick_tpu.io.fasta import write_fasta
-    from spydrpick_tpu.cli import main as cli_main
+    from spydrpick_jax.io.fasta import write_fasta
+    from spydrpick_jax.cli import main as cli_main
 
     al = random_alignment(n_samples=40, n_loci=64, seed=52, gap_frac=0.1)
     fasta = tmp_path / "cli_ck.fasta"
@@ -159,7 +159,7 @@ def test_cli_checkpoint_resume_outputs_match(tmp_path):
 
     # partial checkpoint with the engine the CLI will rebuild: the
     # params key covers statics + threshold, so configs must match
-    from spydrpick_tpu.io.fasta import read_fasta
+    from spydrpick_jax.io.fasta import read_fasta
 
     al2 = read_fasta(str(fasta))
     al2.weights = None
@@ -233,7 +233,7 @@ def test_lazy_wog_checkpoint_resume_matches_full(tmp_path):
     uncheckpointed FULL-wog run — exact wog for outlier candidates,
     mi elsewhere.  (Round-2 limitation: checkpoint x lazy was a hard
     error, so checkpointed big runs paid dual compute.)"""
-    from spydrpick_tpu.engine.outliers import outlier_thresholds
+    from spydrpick_jax.engine.outliers import outlier_thresholds
 
     al = random_alignment(n_samples=50, n_loci=96, seed=53, gap_frac=0.2)
     al.codes[:, 90] = al.codes[:, 9]  # plant an outlier coupling

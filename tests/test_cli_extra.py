@@ -3,8 +3,8 @@ outlier-node FASTA contents, plot generation."""
 
 import numpy as np
 
-from spydrpick_tpu.io.fasta import read_fasta, write_fasta
-from spydrpick_tpu.pipeline import PipelineOptions, run_pipeline
+from spydrpick_jax.io.fasta import read_fasta, write_fasta
+from spydrpick_jax.pipeline import PipelineOptions, run_pipeline
 
 from tests.conftest import random_alignment
 
@@ -43,7 +43,7 @@ def test_outlier_node_fasta_contents(tmp_path):
     codes = rng.integers(0, 4, size=(S, L)).astype(np.uint8)
     codes[:, 30] = codes[:, 5]  # strong pair -> outliers
     al = random_alignment(2, 2)
-    from spydrpick_tpu.core.alignment import Alignment
+    from spydrpick_jax.core.alignment import Alignment
 
     al = Alignment(codes, [f"s{i}" for i in range(S)], "t",
                    np.arange(L), L)
@@ -73,7 +73,7 @@ def test_plot_tool(tmp_path):
     res = run_pipeline(PipelineOptions(
         alignmentfile=str(p), mi_threshold=0.0, no_filter_alignment=True,
         no_sample_reweighting=True, output_dir=str(tmp_path)))
-    from spydrpick_tpu.plot import main as plot_main
+    from spydrpick_jax.plot import main as plot_main
 
     rc = plot_main([res.couplings_path, "--out", str(tmp_path / "plot.png"),
                     "--ld-dist", "5", "--outlier-threshold",
@@ -85,7 +85,7 @@ def test_plot_tool(tmp_path):
 def test_cli_error_paths(capsys):
     """Missing alignment file and no-args runs exit 1 with a clear
     message (reference exits via po error paths, SpydrPick.cpp:143-154)."""
-    from spydrpick_tpu.cli import main
+    from spydrpick_jax.cli import main
 
     assert main([]) == 1
     assert main(["/nonexistent-alignment.fasta"]) == 1
@@ -97,7 +97,7 @@ def test_cli_aracne_outputfile_accepted(tmp_path):
     """--aracne-outputfile is registered (unused) in the reference's
     combined binary (ARACNE_options.cpp:180); we accept-and-ignore it
     like its block/grouping-size siblings."""
-    from spydrpick_tpu.cli import main
+    from spydrpick_jax.cli import main
 
     al = random_alignment(n_samples=30, n_loci=24, seed=83)
     fasta = tmp_path / "a.fasta"
@@ -115,7 +115,7 @@ def test_fasta_junk_preamble_rejected(tmp_path):
     a clear message (advisor round-4 finding)."""
     import pytest
 
-    from spydrpick_tpu.io.fasta import _numpy_parse
+    from spydrpick_jax.io.fasta import _numpy_parse
 
     p = tmp_path / "junk.fasta"
     p.write_bytes(b"junk preamble\n>s1\nACGT\n")
@@ -128,7 +128,7 @@ def test_cli_jax_cache_flag(tmp_path):
     given directory (repeat CLI runs skip jit compiles); 'none' disables."""
     import jax
 
-    from spydrpick_tpu.cli import main
+    from spydrpick_jax.cli import main
 
     al = random_alignment(n_samples=40, n_loci=64)
     fasta = tmp_path / "cache.fasta"
@@ -148,7 +148,7 @@ def test_cli_sharded_matches_single_device(tmp_path):
     twin lives in tests/test_sharding.py)."""
     import filecmp
 
-    from spydrpick_tpu.cli import main
+    from spydrpick_jax.cli import main
 
     al = random_alignment(n_samples=48, n_loci=96, seed=29, gap_frac=0.08)
     fasta = tmp_path / "sh.fasta"

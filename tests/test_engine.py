@@ -3,9 +3,9 @@ thresholds, edge capacity overflow fallback."""
 
 import numpy as np
 
-from spydrpick_tpu.engine.outliers import outlier_thresholds, quartile
-from spydrpick_tpu.engine.solver import EngineConfig, MIEngine
-from spydrpick_tpu.ops.reference import crosstab_pair, mi_single
+from spydrpick_jax.engine.outliers import outlier_thresholds, quartile
+from spydrpick_jax.engine.solver import EngineConfig, MIEngine
+from spydrpick_jax.ops.reference import crosstab_pair, mi_single
 
 from tests.conftest import random_alignment
 
@@ -143,7 +143,7 @@ def test_store_capacity_overflow(tmp_path):
     """Packed mode recycles the store in epochs — a sweep whose total
     edges exceed store capacity still completes exactly; the legacy
     (checkpointed) drain needs the whole sweep resident and raises."""
-    from spydrpick_tpu.engine.solver import EngineConfig, MIEngine
+    from spydrpick_jax.engine.solver import EngineConfig, MIEngine
     import pytest as _pytest
 
     al = random_alignment(n_samples=30, n_loci=64, seed=99)
@@ -166,7 +166,7 @@ def test_deferred_wog_drain_matches_full():
     wog for every edge at/above the outlier threshold and mi for the
     rest (the only wog values the output surface reads,
     SpydrPick.hpp:100-124)."""
-    from spydrpick_tpu.engine.outliers import outlier_thresholds
+    from spydrpick_jax.engine.outliers import outlier_thresholds
 
     al = random_alignment(n_samples=60, n_loci=120, seed=21, gap_frac=0.2)
     # plant strong couplings so edges clear the Tukey fence
@@ -394,9 +394,10 @@ def test_row_window_overflow_reextraction():
 def test_row_window_xla_compaction():
     """Windowed mode with the cumsum+scatter fallback compaction."""
     al = random_alignment(n_samples=40, n_loci=70, seed=94)
-    ref = MIEngine(al, EngineConfig(tile=8, row_window=1)).sweep(0.02)
+    ref = MIEngine(al, EngineConfig(tile=8, row_window=1,
+                                    compaction="route")).sweep(0.02)
     got = MIEngine(al, EngineConfig(tile=8, row_window=16,
-                                    use_pallas_compact="off")).sweep(0.02)
+                                    compaction="scatter")).sweep(0.02)
     _assert_edgesets_equal(ref.sort_desc(), got.sort_desc())
 
 
@@ -413,7 +414,7 @@ def test_row_window_wog_full_drain():
 def test_row_window_auto_and_rounding():
     """row_window resolution: explicit widths round to tiles and divide
     Lp exactly; auto stays full-width below 2^17 padded columns."""
-    from spydrpick_tpu.engine.solver import build_device_data
+    from spydrpick_jax.engine.solver import build_device_data
 
     al = random_alignment(n_samples=4, n_loci=1000, seed=96)
     # auto at this width: full rows
@@ -432,7 +433,7 @@ def test_packed_incremental_assembly_matches(monkeypatch):
     """Incremental in-sweep assembly submits (submit_ready) must yield
     byte-identical edge arrays to whole-epoch collection: batch size 1
     forces a collect per fetched chunk, across epoch recycles."""
-    from spydrpick_tpu.engine import solver as solver_mod
+    from spydrpick_jax.engine import solver as solver_mod
 
     monkeypatch.setattr(solver_mod, "_ASM_BATCH_CHUNKS", 1)
     al = random_alignment(n_samples=40, n_loci=512, seed=79, gap_frac=0.1)
@@ -454,7 +455,7 @@ def test_identical_statics_share_jitted_programs():
     """The pipeline builds a fresh MIEngine per run; engines with
     identical SweepStatics must share the module-level traced/compiled
     programs (solver._jit_* lru factories) instead of retracing — the
-    warm-pipeline latency fix (see ARCHITECTURE.md round-5b)."""
+    warm-pipeline latency fix)."""
     al = random_alignment(n_samples=30, n_loci=64, seed=11, gap_frac=0.1)
     a = MIEngine(al, EngineConfig(tile=16))
     b = MIEngine(al, EngineConfig(tile=16))

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from spydrpick_tpu.io import fasta
+from spydrpick_jax.io import fasta
 
 try:
-    from spydrpick_tpu.native import fasta_native
+    from spydrpick_jax.native import fasta_native
 
     fasta_native._load()
     HAVE_NATIVE = True
@@ -28,7 +28,7 @@ def test_native_matches_numpy(tmp_path):
 
 
 def test_native_random_roundtrip(tmp_path):
-    from spydrpick_tpu.io.fasta import write_fasta
+    from spydrpick_jax.io.fasta import write_fasta
     from tests.conftest import random_alignment
 
     al = random_alignment(37, 211, seed=70, gap_frac=0.2)

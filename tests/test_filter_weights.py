@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from spydrpick_tpu.core.alignment import Alignment
-from spydrpick_tpu.core.filter import FilterParams, filter_list, filter_mask
-from spydrpick_tpu.core.weights import (
+from spydrpick_jax.core.alignment import Alignment
+from spydrpick_jax.core.filter import FilterParams, filter_list, filter_mask
+from spydrpick_jax.core.weights import (
     compute_sample_weights,
     hamming_distance_matrix,
 )
@@ -82,7 +82,7 @@ def test_match_counts_streaming_path_parity(monkeypatch):
     """The host-streaming path (codes too large for device residency)
     must equal the device-resident path exactly, including multi-tile
     splits and pad columns."""
-    from spydrpick_tpu.core import weights as W
+    from spydrpick_jax.core import weights as W
 
     al = random_alignment(24, 300, seed=9, gap_frac=0.2)
     resident = W.sample_match_counts(al, tile=128)  # 3 tiles, 84 pad cols
@@ -101,7 +101,7 @@ def test_match_counts_f64_group_flush(monkeypatch):
     into a host float64 accumulator per column group; shrinking the
     bound must not change the result (ADVICE r3: past ~16.7M columns
     f32 accumulation silently loses integer exactness)."""
-    from spydrpick_tpu.core import weights as W
+    from spydrpick_jax.core import weights as W
 
     al = random_alignment(16, 700, seed=11, gap_frac=0.15)
     base = W.sample_match_counts(al, tile=128)

@@ -14,7 +14,7 @@ import os
 
 import pytest
 
-from spydrpick_tpu.cli import main as cli_main
+from spydrpick_jax.cli import main as cli_main
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "golden")

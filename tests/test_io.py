@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from spydrpick_tpu.core.alphabet import encode_bytes
-from spydrpick_tpu.io.fasta import read_fasta, write_fasta
-from spydrpick_tpu.io.loci import parse_loci_list, parse_value_list
+from spydrpick_jax.core.alphabet import encode_bytes
+from spydrpick_jax.io.fasta import read_fasta, write_fasta
+from spydrpick_jax.io.loci import parse_loci_list, parse_value_list
 
 
 def test_encode_semantics():
@@ -60,7 +60,7 @@ def test_loci_and_value_lists(tmp_path):
 def test_unique_path_increments(tmp_path):
     """Auto-uniquified output names (reference get_unique_ofstream,
     SpydrPick.cpp:429,459; gwes_plot.r:71-76 expects .N suffixes)."""
-    from spydrpick_tpu.utils.uniquefile import unique_path
+    from spydrpick_jax.utils.uniquefile import unique_path
 
     base = tmp_path / "out.txt"
     p1 = unique_path(str(base))
@@ -80,8 +80,8 @@ def test_native_formatter_matches_python_fallback(tmp_path):
 
     import numpy as np
 
-    from spydrpick_tpu.engine.solver import EdgeSet
-    from spydrpick_tpu.io.writers import write_couplings
+    from spydrpick_jax.engine.solver import EdgeSet
+    from spydrpick_jax.io.writers import write_couplings
     from tests.conftest import random_alignment
 
     al = random_alignment(20, 50, seed=77)
@@ -111,7 +111,7 @@ def test_sort_desc_tie_semantics():
     lexsort exactly, including long equal-MI runs."""
     import numpy as np
 
-    from spydrpick_tpu.engine.solver import EdgeSet
+    from spydrpick_jax.engine.solver import EdgeSet
 
     rng = np.random.default_rng(3)
     E = 20000
@@ -134,7 +134,7 @@ def test_empty_fasta_file_reports_empty_not_missing(tmp_path):
     files with the same code)."""
     import pytest
 
-    from spydrpick_tpu.io.fasta import read_fasta
+    from spydrpick_jax.io.fasta import read_fasta
 
     p = tmp_path / "empty.fasta"
     p.write_bytes(b"")

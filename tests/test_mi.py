@@ -2,15 +2,15 @@
 
 Test strategy per SURVEY §4: the reference repo ships no tests, so the
 golden model is our own float64 transliteration of mi.hpp:146-181
-(spydrpick_tpu/ops/reference.py) plus analytic identities.
+(spydrpick_jax/ops/reference.py) plus analytic identities.
 """
 
 import numpy as np
 import jax.numpy as jnp
 
-from spydrpick_tpu.core.alphabet import N_STATES
-from spydrpick_tpu.ops.mi import mi_from_crosstabs, tile_mi
-from spydrpick_tpu.ops.reference import crosstab_pair, mi_single
+from spydrpick_jax.core.alphabet import N_STATES
+from spydrpick_jax.ops.mi import mi_from_crosstabs, tile_mi
+from spydrpick_jax.ops.reference import crosstab_pair, mi_single
 
 from tests.conftest import random_alignment
 

@@ -62,8 +62,8 @@ def test_two_process_sharded_sweep(tmp_path):
     assert len(a["ipos"]) > 0
 
     # and identical to a plain single-device sweep of the same data
-    from spydrpick_tpu.core.alignment import Alignment
-    from spydrpick_tpu.engine.solver import EngineConfig, MIEngine
+    from spydrpick_jax.core.alignment import Alignment
+    from spydrpick_jax.engine.solver import EngineConfig, MIEngine
 
     rng = np.random.default_rng(7)
     S, L = 24, 96

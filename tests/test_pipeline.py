@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from spydrpick_tpu.io.fasta import write_fasta
-from spydrpick_tpu.pipeline import PipelineOptions, run_pipeline
+from spydrpick_jax.io.fasta import write_fasta
+from spydrpick_jax.pipeline import PipelineOptions, run_pipeline
 
 from tests.conftest import random_alignment
 
@@ -150,16 +150,16 @@ def test_aux_outputs(fasta_path, tmp_path):
 
 
 def test_cli_version_and_parsing(capsys):
-    from spydrpick_tpu.cli import main
+    from spydrpick_jax.cli import main
 
     assert main(["--version"]) == 0
     out = capsys.readouterr().out
-    assert "spydrpick-tpu version" in out
+    assert "spydrpick-jax version" in out
     assert main([]) == 1  # no alignment file -> error
 
 
 def test_cli_full_run(fasta_path, tmp_path):
-    from spydrpick_tpu.cli import main
+    from spydrpick_jax.cli import main
 
     rc = main([
         str(fasta_path), "--mi-threshold", "0.1",

@@ -3,8 +3,8 @@ invariance, weight-1 ⇔ unweighted counts, duplicated-column MI."""
 
 import numpy as np
 
-from spydrpick_tpu.engine.solver import EngineConfig, MIEngine
-from spydrpick_tpu.ops.reference import crosstab_pair, mi_single
+from spydrpick_jax.engine.solver import EngineConfig, MIEngine
+from spydrpick_jax.ops.reference import crosstab_pair, mi_single
 
 from tests.conftest import random_alignment
 

@@ -1,8 +1,8 @@
-"""Sharded-sweep scaling-model regression (ARCHITECTURE.md "Multi-chip
-scaling model"): the compiled step/drain programs contain EXACTLY the
-collectives the model charges for, and the dispatch-step count matches
-ceil(items / (n_dev * G)).  The measured companion is
-scripts/perf_scaling.py (wall-vs-N on the virtual mesh).
+"""Sharded-sweep scaling-model regression: the compiled step/drain
+programs contain EXACTLY the collectives the model charges for (per
+step: the counts/lines/offsets all-gathers; per drain: the store
+gathers and one colmax pmax), and the dispatch-step count matches
+ceil(items / (n_dev * G)).
 
 Reference parallel shape being modelled: tbb::parallel_reduce over
 block-rows with join-merged thread state (SpydrPick.hpp:143,
@@ -17,8 +17,8 @@ import pytest
 import jax
 from jax.sharding import PartitionSpec as P
 
-from spydrpick_tpu.engine.solver import EngineConfig, MIEngine
-from spydrpick_tpu.parallel.mesh import (
+from spydrpick_jax.engine.solver import EngineConfig, MIEngine
+from spydrpick_jax.parallel.mesh import (
     make_drain,
     make_mesh,
     make_sharded_group_step,

@@ -10,8 +10,8 @@ import jax
 import numpy as np
 import pytest
 
-from spydrpick_tpu.engine.solver import EngineConfig, MIEngine
-from spydrpick_tpu.parallel.mesh import balanced_row_order, make_mesh, sharded_sweep
+from spydrpick_jax.engine.solver import EngineConfig, MIEngine
+from spydrpick_jax.parallel.mesh import balanced_row_order, make_mesh, sharded_sweep
 
 from tests.conftest import random_alignment
 
@@ -120,41 +120,30 @@ def test_sample_sharded_2d_mesh_matches():
     np.testing.assert_allclose(ref.colmax, sharded.colmax, rtol=1e-4)
 
 
-def test_sample_sharded_pallas_kernel_matches():
-    """2-D mesh WITH the Pallas MI kernel on (interpret mode): the
-    split path (crosstable kernel -> psum over 'samples' -> entropy
-    epilogue kernel) must match the single-device fused-kernel sweep.
-    Round-2 gap: sample sharding used to force use_pallas=False."""
-    from spydrpick_tpu.ops.mi_pallas import BI
-
-    al = random_alignment(n_samples=45, n_loci=2 * BI, seed=48, gap_frac=0.1)
-    ref = MIEngine(al, EngineConfig(tile=BI, use_pallas="on")).sweep(0.02)
-    eng = MIEngine(al, EngineConfig(tile=BI, use_pallas="on"))
-    assert eng.statics.use_pallas
-    mesh = make_mesh(2, n_samples=4)
-    sharded = sharded_sweep(eng, 0.02, mesh)
-    si, sj, sm, sw = _key(ref)
-    mi_, mj, mm, mw = _key(sharded)
-    # psum splits the sample reduction: near-threshold edges may flip
-    ref_set = set(zip(si, sj))
-    got_set = set(zip(mi_, mj))
-    assert len(ref_set ^ got_set) <= max(2, len(ref_set) // 100)
-    rm = {k: v for k, v in zip(zip(si, sj), sm)}
-    gm = {k: v for k, v in zip(zip(mi_, mj), mm)}
-    for k in ref_set & got_set:
-        assert abs(rm[k] - gm[k]) < 1e-4, k
-    np.testing.assert_allclose(ref.colmax, sharded.colmax, atol=1e-4)
+def test_sample_sharded_int8_unit_matches_f32():
+    """2-D mesh in int8 unit mode (codes residency, lazy wog) against
+    the single-device f32 path: both compute exact counts, so the
+    sharded int8 sweep must equal the one-device f32 sweep exactly."""
+    al = random_alignment(n_samples=45, n_loci=256, seed=48, gap_frac=0.1)
+    al.weights = None
+    ref = MIEngine(al, EngineConfig(tile=128, mxu_int8="off",
+                                    wog_fetch="outliers")).sweep(0.02)
+    eng = MIEngine(al, EngineConfig(tile=128, onehot_storage="codes",
+                                    wog_fetch="outliers"))
+    assert eng.statics.int8_mode == "unit"
+    sharded = sharded_sweep(eng, 0.02, make_mesh(2, n_samples=4))
+    for a, b in zip(_key(ref), _key(sharded)):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(ref.colmax, sharded.colmax)
 
 
 def test_sample_sharded_int8_fixed14_bit_identical():
-    """2-D mesh on the MXU int8 fixed14 path: int32 count partials psum
+    """2-D mesh on the int8 fixed14 path: int32 count partials psum
     EXACTLY, so the sharded sweep is BIT-identical to the single-device
-    int8 kernel (unlike the bf16 psum path, whose f32 partial sums
+    int8 sweep (unlike the f32 psum path, whose partial sums
     reassociate)."""
-    from spydrpick_tpu.ops.mi_pallas import BI
-
-    al = random_alignment(n_samples=45, n_loci=2 * BI, seed=49, gap_frac=0.1)
-    cfg = EngineConfig(tile=BI, use_pallas="on", mxu_int8="on")
+    al = random_alignment(n_samples=45, n_loci=256, seed=49, gap_frac=0.1)
+    cfg = EngineConfig(tile=128, mxu_int8="on")
     ref_eng = MIEngine(al, cfg)
     assert ref_eng.statics.int8_mode == "fixed14", ref_eng.statics.int8_mode
     ref = ref_eng.sweep(0.02)
@@ -171,14 +160,11 @@ def test_sample_sharded_int8_fixed14_bit_identical():
 
 def test_sample_sharded_int8_unit_bit_identical():
     """Unit weights on the 2-D mesh: exact integer counts in a SINGLE
-    int8 pass, psum'd in int32 — bit-identical to single-device (and
-    the dual/wog variant composes because the entropy epilogue is a
-    separate kernel over the merged counts)."""
-    from spydrpick_tpu.ops.mi_pallas import BI
-
-    al = random_alignment(n_samples=45, n_loci=2 * BI, seed=50, gap_frac=0.1)
+    int8 pass, psum'd in int32 — bit-identical to single-device (the
+    dual/wog variant shares the merged crosstable)."""
+    al = random_alignment(n_samples=45, n_loci=256, seed=50, gap_frac=0.1)
     al.weights = None
-    cfg = EngineConfig(tile=BI, use_pallas="on")
+    cfg = EngineConfig(tile=128)
     ref_eng = MIEngine(al, cfg)
     assert ref_eng.statics.int8_mode == "unit", ref_eng.statics.int8_mode
     ref = ref_eng.sweep(0.02)
@@ -196,7 +182,7 @@ def test_sharded_lazy_wog_matches_full():
     """Sharded sweep with the production lazy-wog drain: exact wog for
     every edge at/above the outlier threshold, mi elsewhere (the only
     wog values the output surface reads, SpydrPick.hpp:100-124)."""
-    from spydrpick_tpu.engine.outliers import outlier_thresholds
+    from spydrpick_jax.engine.outliers import outlier_thresholds
 
     al = random_alignment(n_samples=50, n_loci=96, seed=49, gap_frac=0.2)
     al.codes[:, 90] = al.codes[:, 9]  # plant an outlier coupling
@@ -230,7 +216,7 @@ def test_sharded_all_features_compose():
     np.testing.assert_array_equal(fi, li)
     np.testing.assert_array_equal(fj, lj)
     np.testing.assert_allclose(fm, lm, rtol=1e-4, atol=1e-6)
-    from spydrpick_tpu.engine.outliers import outlier_thresholds
+    from spydrpick_jax.engine.outliers import outlier_thresholds
     thr_out, _ = outlier_thresholds(ref.colmax)
     cand = fm >= thr_out
     assert cand.any()
@@ -278,7 +264,7 @@ def test_sharded_row_window_overflow_and_epochs():
 def test_sharded_view_pair_mi_matches_engine():
     """ShardedEngineView's psum pairs kernel == the single-device pairs
     kernel: the threshold tournament may run on either."""
-    from spydrpick_tpu.parallel.mesh import ShardedEngineView
+    from spydrpick_jax.parallel.mesh import ShardedEngineView
 
     al = random_alignment(n_samples=45, n_loci=80, seed=60, gap_frac=0.15)
     eng = MIEngine(al, EngineConfig(tile=16))
@@ -295,8 +281,8 @@ def test_sharded_view_pair_mi_matches_engine():
 def test_sharded_view_tournament_matches():
     """determine_mi_threshold accepts the view (duck-typed engine) and
     agrees with the unsharded tournament up to psum accumulation order."""
-    from spydrpick_tpu.engine.threshold import determine_mi_threshold
-    from spydrpick_tpu.parallel.mesh import ShardedEngineView
+    from spydrpick_jax.engine.threshold import determine_mi_threshold
+    from spydrpick_jax.parallel.mesh import ShardedEngineView
 
     al = random_alignment(n_samples=40, n_loci=150, seed=61, gap_frac=0.1)
     eng = MIEngine(al, EngineConfig(tile=16))
@@ -350,7 +336,7 @@ def test_sharded_checkpoint_resume_matches_clean(tmp_path):
     checkpoint path existed but had zero tests."""
     import os
 
-    from spydrpick_tpu.engine import checkpoint as ck
+    from spydrpick_jax.engine import checkpoint as ck
 
     al = random_alignment(n_samples=40, n_loci=128, seed=70, gap_frac=0.1)
     # edge_capacity 128 overflows the early block-rows at threshold -1
@@ -436,7 +422,7 @@ def test_sharded_lazy_checkpoint_resume(tmp_path):
     surface as a clean full-wog sharded run)."""
     import os
 
-    from spydrpick_tpu.engine.outliers import outlier_thresholds
+    from spydrpick_jax.engine.outliers import outlier_thresholds
 
     al = random_alignment(n_samples=40, n_loci=96, seed=72, gap_frac=0.2)
     al.codes[:, 90] = al.codes[:, 9]  # plant an outlier coupling

@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from spydrpick_tpu.engine.solver import EngineConfig, MIEngine
-from spydrpick_tpu.engine.threshold import (
+from spydrpick_jax.engine.solver import EngineConfig, MIEngine
+from spydrpick_jax.engine.threshold import (
     default_mi_values,
     determine_mi_threshold,
     determine_threshold_pairs,
@@ -77,7 +77,7 @@ def test_pack_tournament_indices_convention():
     tiling exact."""
     import numpy as np
 
-    from spydrpick_tpu.engine.solver import pack_tournament_indices
+    from spydrpick_jax.engine.solver import pack_tournament_indices
 
     iters, n_valid, chunk = 3, 10, 8
     ipos = np.arange(iters * n_valid) % 7
