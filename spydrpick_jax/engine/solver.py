@@ -59,7 +59,7 @@ from spydrpick_jax.utils.device import device_bytes_limit
 
 
 # edge compaction used by EngineConfig(compaction="auto"): the faster
-# on the H100 at 3000 x 30720 (PERF.md, PR 1: 1.90 s vs 2.03 s sweeps)
+# measured on one H100 at 3000 x 30720 (1.90 s vs 2.03 s sweeps, PERF.md)
 DEFAULT_COMPACTION = "scatter"
 
 

@@ -1,5 +1,5 @@
 """CPU tests of chip_smoke.py's inputs and comparison helpers (the
-phases themselves need a GPU and run through the chip tool)."""
+phases themselves need a GPU)."""
 
 import os
 import subprocess
